@@ -64,9 +64,8 @@ def main():
             bb.codes[rows][:, ret], bb.alphabet, "dna", name="A_0_%d" % i))
         cores.append(core)
         true_states += core.M
-    # TWO banks x one canonical query pad: the TPU production shapes
-    # (pipeline.compute_scores n_buckets=2 + canonical_pad), which the
-    # bench must exercise/warm exactly
+    # TWO banks: the production bucketing (pipeline.compute_scores
+    # n_buckets=2), which the bench must exercise
     banks = build_banks(cores, indices=list(range(len(cores))),
                         uniform=True, n_buckets=2)
 

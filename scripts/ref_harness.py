@@ -228,7 +228,7 @@ def build_hmmdir(workdir, rebuild=False, backbone=None, tree=None,
     outdir = os.path.join(workdir, "ours_d")
     hmmdir = os.path.join(outdir, "tree_decomp", "root")
     if not os.path.isdir(hmmdir):
-        env = dict(os.environ, WITCH_TPU_PLATFORM="cpu")
+        env = dict(os.environ, JAX_PLATFORMS="cpu")
         subprocess.run(
             [sys.executable, "-m", "witch_tpu", "-b", backbone, "-e", tree,
              "-q", queries, "-d", outdir, "-o", "aligned.fasta",

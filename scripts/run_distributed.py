@@ -90,8 +90,7 @@ def main():
         make_dataset(td)
         # single-process reference
         env_base = dict(os.environ, JAX_PLATFORMS="cpu",
-                        WITCH_TPU_NO_MESH="1",
-                        WITCH_TPU_PLATFORM="cpu")
+                        WITCH_TPU_NO_MESH="1")
         r = subprocess.run(
             [sys.executable, "-c",
              "import sys; sys.path.insert(0, %r); "

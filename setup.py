@@ -1,4 +1,4 @@
-"""witch-tpu: TPU-native WITCH (WeIghTed Consensus Hmm alignment).
+"""witch-tpu: WITCH (WeIghTed Consensus Hmm alignment) in JAX.
 
 Builds the native host kernels (C++, CPython C API) alongside the pure
 Python/JAX package. The native extension is optional at runtime — modules
@@ -11,7 +11,7 @@ from setuptools import Extension, find_packages, setup
 setup(
     name="witch-tpu",
     version="0.1.0",
-    description="TPU-native WITCH multiple sequence alignment",
+    description="WITCH multiple sequence alignment in JAX",
     packages=find_packages(include=["witch_tpu", "witch_tpu.*"]),
     ext_modules=[
         Extension(

@@ -1,10 +1,11 @@
-"""Full-grid device gate prefilter vs the native engine (pipeline).
+"""The pipeline's device path vs the native host engine.
 
-With --full-search-results the pipeline persists the complete reported
-set. The device pre-scoring path additionally runs the flank-row gate
-prefilter (hmm/flank_device.py:prefilter_grid) so no-region pairs skip
-native domain definition; the persisted results and final alignment
-must match the all-native run.
+The device decision (pipeline.on_gpu) is forced on here, so the device
+stages run on JAX's CPU backend: the pre-score (XLA scan), the device
+gate's null2, and with --full-search-results the flank-row gate
+prefilter (hmm/flank_device.py:prefilter_grid), which lets no-region
+pairs skip native domain definition. Persisted results and the final
+alignment must match the all-native run.
 """
 
 import os
@@ -44,22 +45,16 @@ def tiny_problem(tmp_path):
     return bb_path, q_path
 
 
-def _run(args, env=None):
-    old = {}
-    for k, v in (env or {}).items():
-        old[k] = os.environ.get(k)
-        os.environ[k] = v
+def _run(args, monkeypatch=None):
+    from witch_tpu import pipeline
+    if monkeypatch is not None:
+        monkeypatch.setattr(pipeline, "on_gpu", lambda: True)
     try:
-        parser = init_parser()
-        build_configs(parser, args)
-        from witch_tpu.pipeline import main_alignment_process
-        return main_alignment_process()
+        build_configs(init_parser(), args)
+        return pipeline.main_alignment_process()
     finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+        if monkeypatch is not None:
+            monkeypatch.undo()
 
 
 def _read_results(outdir):
@@ -74,7 +69,8 @@ def _read_results(outdir):
     return res
 
 
-def test_device_prefilter_matches_native(tiny_problem, tmp_path):
+def test_device_prefilter_matches_native(tiny_problem, tmp_path,
+                                        monkeypatch):
     bb, q = tiny_problem
     out_n = tmp_path / "native"
     _run(["-b", str(bb), "-q", str(q), "-d", str(out_n),
@@ -84,7 +80,7 @@ def test_device_prefilter_matches_native(tiny_problem, tmp_path):
     _run(["-b", str(bb), "-q", str(q), "-d", str(out_d),
           "-o", "aligned.fasta", "--full-search-results", "1",
           "--keep-decomposition", "1"],
-         env={"WITCH_TPU_DEVICE_PRESCORE": "1"})
+         monkeypatch)
     rn = _read_results(out_n)
     rd = _read_results(out_d)
     assert rn.keys() == rd.keys() and rn
@@ -99,3 +95,21 @@ def test_device_prefilter_matches_native(tiny_problem, tmp_path):
     # the device run must actually have taken the prefilter path
     with open(out_d / "runtime_breakdown.txt") as fh:
         assert "device gate prefilter" in fh.read()
+
+
+def test_device_path_matches_host(tiny_problem, tmp_path, monkeypatch):
+    """Device pre-score + device gate give the host engine's rows and
+    weights byte for byte (the CPU-sized form of chip_smoke.py's DNA
+    phase)."""
+    bb, q = tiny_problem
+    outs = {}
+    for tag, mp in (("host", None), ("device", monkeypatch)):
+        out = tmp_path / tag
+        _run(["-b", str(bb), "-q", str(q), "-d", str(out),
+              "-o", "aligned.fasta", "--save-weight", "1"], mp)
+        outs[tag] = [open(out / f).read() for f in (
+            "aligned.fasta", "aligned.masked.fasta", "weights.txt")]
+        stages = open(out / "runtime_breakdown.txt").read()
+        assert ("scoring: device gate" in stages) == (tag == "device")
+        assert ("native Forward pre-rank" in stages) == (tag == "host")
+    assert outs["device"] == outs["host"]

@@ -2,7 +2,7 @@
 
 The batched forward (ops/pairhmm_forward.py) is the device-side scorer
 for anchor embeddings / guide distances in the consistency backbone —
-one scalar per pair, transfer-friendly on the slow device link. It
+one scalar per pair, so little leaves the device. It
 must reproduce the native kernel's forward recurrence (here: the
 float64 numpy port) through padding, masking, and the associative-scan
 Y recurrence.

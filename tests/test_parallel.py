@@ -36,6 +36,25 @@ def test_sharded_scoring_bit_identical():
     assert np.array_equal(bits_sh, bits_1)
 
 
+def test_sharded_kernel_bit_identical():
+    """The GPU pre-score kernel under shard_map (query blocks over
+    'data', interpret mode here) equals the one-device kernel bit for
+    bit, with the block count padded to the mesh."""
+    import jax
+    if len(jax.devices()) < 8:
+        pytest.skip("needs the 8-device virtual mesh")
+    from witch_tpu.ops.pallas_forward import forward_bits
+    from witch_tpu.parallel.dist import data_mesh, sharded_kernel_step
+
+    bank, qcodes, _, _, _ = _toy()._toy_bank_and_queries(H=3, Q=70, L=12)
+    qlens = np.random.default_rng(4).integers(3, 13, 70).astype(np.int32)
+    one = forward_bits(bank, qcodes, qlens, interpret=True)
+    eight = forward_bits(bank, qcodes, qlens, n_shards=8,
+                         step=sharded_kernel_step(data_mesh(8),
+                                                  interpret=True))
+    assert np.array_equal(one, eight)
+
+
 def test_dryrun_multichip_production_step():
     import jax
     if len(jax.devices()) < 8:

@@ -300,8 +300,7 @@ def _align_all_device(core, codes: List[np.ndarray], chunk: int = 16):
     M = prof.M
     Mp1 = bank.em_odds.shape[1]
     # quantize the batch shapes (P fixed, L to 128) so repeated calls with
-    # different clusters/iterations reuse compiled kernels — compilation
-    # on TPU costs minutes, far more than the padding FLOPs
+    # different clusters/iterations reuse compiled kernels
     Lmax = -(-max(len(c) for c in codes) // 128) * 128
     out = []
     args0 = (bank.em_odds, bank.t_mm, bank.t_mi, bank.t_md, bank.t_im,

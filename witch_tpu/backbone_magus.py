@@ -4,7 +4,7 @@ The reference's scenario-A backbone comes from vendored MAGUS (cluster the
 sequences, align each cluster, merge the cluster alignments through a
 graph-clustering DP). A single-profile iterative aligner (backbone.py)
 struggles on highly diverged inputs, so this module provides the same
-divide-and-conquer shape with TPU-friendly parts:
+divide-and-conquer shape with batch-friendly parts:
 
   1. k-mer k-means clustering of the sequences (host, numpy);
   2. each cluster aligned by the iterative profile-HMM aligner

@@ -1,6 +1,6 @@
 """Dense eHMM bank: the ensemble of profile HMMs as padded device arrays.
 
-This is the TPU-native replacement for the reference's directory of .hmm
+This is the device-side replacement for the reference's directory of .hmm
 files (witch_msa/gcmm/algorithm.py decomposition outputs): all subset
 profiles live in [H, M_max+1, ...] arrays, bucketed by state count so the
 Forward/align kernels waste little padding compute.
@@ -63,6 +63,20 @@ def _pad_pow2ish(m: int, minimum: int = 64) -> int:
     return size
 
 
+def ladder_states(m: int) -> int:
+    """Padded state count of a device call: the next of 128 * 2^k and
+    192 * 2^k at or above m. Banks take their widths from the data; the
+    device paths pad them to this ladder so that their compile shapes do
+    not depend on the dataset. Zero-padded states are unreachable."""
+    s = 128
+    while True:
+        if m <= s:
+            return s
+        if m <= s * 3 // 2:
+            return s * 3 // 2
+        s *= 2
+
+
 def bank_from_profiles(profiles: Sequence[Profile],
                        nseqs: Sequence[int],
                        indices: Sequence[int],
@@ -112,37 +126,6 @@ def choose_bucket_edges(sizes, n_buckets: int = 2, align: int = 128):
     return best[0] or [top]
 
 
-def build_banks_ladder(cores: List[CoreHMM],
-                       indices: Sequence[int] = None,
-                       multihit: bool = True,
-                       rungs=(256, 512, 1024, 2048, 4096)
-                       ) -> List[ProfileBank]:
-    """Banks bucketed on a FIXED power-of-two lane ladder: each model
-    lands in the smallest rung with M < rung. Unlike the data-derived
-    choose_bucket_edges, the resulting kernel shapes are canonical
-    across runs/datasets — one compiled program per rung, ever. Used
-    by the fused align kernel (ops/pallas_oa.py), whose per-tile cost
-    is proportional to the padded lane count."""
-    if indices is None:
-        indices = list(range(len(cores)))
-    buckets = {}
-    for idx, core in zip(indices, cores):
-        for r in rungs:
-            if core.M < r:
-                buckets.setdefault(r, []).append((idx, core))
-                break
-        else:
-            raise ValueError("model M=%d exceeds ladder" % core.M)
-    out = []
-    for rung in sorted(buckets):
-        group = buckets[rung]
-        profiles = [configure(c, multihit=multihit) for _, c in group]
-        out.append(bank_from_profiles(
-            profiles, [c.nseq for _, c in group],
-            [i for i, _ in group], rung - 1))
-    return out
-
-
 def build_banks(cores: List[CoreHMM], indices: Sequence[int] = None,
                 multihit: bool = True, min_bucket: int = 64,
                 uniform: bool = False, n_buckets: int = 1
@@ -152,9 +135,8 @@ def build_banks(cores: List[CoreHMM], indices: Sequence[int] = None,
     Returns a list of ProfileBanks, one per M bucket, each padded to the
     bucket boundary. `indices` preserves ensemble numbering.
 
-    uniform=True pads everything into ONE bank (a single kernel shape —
-    preferred on TPU where compilation is far more expensive than the
-    padding FLOPs it wastes).
+    uniform=True pads into data-derived buckets (choose_bucket_edges;
+    one bank when n_buckets=1) instead of power-of-two sizes.
     """
     if indices is None:
         indices = list(range(len(cores)))

@@ -15,10 +15,9 @@ most pairs outright:
 
 On the host engine the full [L, M] Forward+Backward per pair is the
 dominant gate cost (~2-4 ms/pair C++; 137 s for the 70,500-pair
-example grid on 4 cores). These scans are exactly the shape the TPU
-does well — batched odds-domain DP over [Q, Mp] tiles — and the rows
-are tiny ([3, L+1] f32 per pair), so device->host traffic stays
-negligible even over a thin link.
+example grid on 4 cores). These scans batch well on a device —
+odds-domain DP over [Q, Mp] tiles — and the rows are tiny ([3, L+1]
+f32 per pair), so device->host traffic stays negligible.
 
 This module implements the batched Forward AND Backward special-row
 scans (the backward mirrors hmm/forward.py:_forward_one right-to-left;

@@ -1,9 +1,11 @@
-"""Batched Forward scoring on TPU (JAX).
+"""Batched Forward scoring in JAX.
 
-The TPU-native replacement for the reference's all-vs-all process farm of
+The device replacement for the reference's all-vs-all process farm of
 `hmmsearch --max` jobs (witch_msa/gcmm/algorithm.py:273-337): one dense
 [queries x HMMs] scaled-probability Forward DP, scanned over query residues
 with the per-row delete chain expressed as an associative scan over states.
+On a GPU score_bank runs the Triton kernel of ops/pallas_forward.py
+instead, which computes the same recurrence.
 
 Numerics: odds-domain float32 with per-row rescaling (the same strategy
 HMMER's vector Forward uses); validated against the float64 log-space
@@ -20,6 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..device import on_gpu
 from .bank import ProfileBank
 
 OMEGA = 1.0 / 256.0   # null2 prior weight (seqbias floor)
@@ -115,29 +118,24 @@ def seq_bits_with_bias_floor(pre_bits: jnp.ndarray) -> jnp.ndarray:
 
 def score_bank(bank: ProfileBank, codes: np.ndarray, qlens: np.ndarray,
                q_chunk: int = 128, backend: str = "auto",
-               mesh=None, single_shape: bool = False) -> np.ndarray:
+               mesh=None) -> np.ndarray:
     """Score [Q] queries against one bank; returns pre-score bits [Q, H].
 
-    backend="auto" uses the hand-written Pallas kernel on TPU (fastest,
-    single compile) and the XLA scan elsewhere. With a multi-device
-    `mesh` (jax.sharding.Mesh with a 'data' axis) queries are sharded
-    across devices — bit-identical results, distributed wall-clock.
+    backend="auto" runs the Triton kernel (ops/pallas_forward.py) on a
+    GPU, which beats the XLA scan there, and the XLA scan elsewhere;
+    "xla" and "pallas" pick one. With a multi-device `mesh`
+    (jax.sharding.Mesh with a 'data' axis) queries are sharded across
+    devices — bit-identical results, distributed wall-clock.
     """
     if backend == "auto":
-        try:
-            backend = ("pallas" if jax.default_backend() == "tpu"
-                       else "xla")
-        except Exception:
-            backend = "xla"
+        backend = "pallas" if on_gpu() else "xla"
     if mesh is not None and int(mesh.shape.get("data", 1)) > 1:
         from ..parallel.dist import sharded_score_bank
         return sharded_score_bank(mesh, bank, codes.astype(np.int32),
                                   qlens.astype(np.int32), backend=backend)
     if backend == "pallas":
-        from ..ops.pallas_forward import pallas_forward_bits
-        return pallas_forward_bits(bank, codes.astype(np.int32),
-                                   qlens.astype(np.int32),
-                                   single_shape=single_shape)
+        from ..ops.pallas_forward import forward_bits
+        return forward_bits(bank, codes, qlens)
     args = (bank.em_odds, bank.t_mm, bank.t_mi, bank.t_md, bank.t_im,
             bank.t_ii, bank.t_dm, bank.t_dd, bank.bm)
     dev_args = [jnp.asarray(a) for a in args]

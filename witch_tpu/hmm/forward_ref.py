@@ -1,5 +1,5 @@
 """Reference (numpy, float64, log-space) Forward/Backward/posterior for
-calibration. The production TPU kernels are validated against this module;
+calibration. The production device kernels are validated against this module;
 this module is validated against the bundled HMMER 3.1b2 binaries.
 
 Replaces the compute contract of `hmmsearch --noali -E 99999999 --max`

@@ -1,21 +1,19 @@
-"""Device-batched reporting gate: null2/envelope rescoring on the TPU.
+"""Device-batched reporting gate: null2/envelope rescoring on device.
 
-Orchestrates the TPU half of the hmmsearch domain-definition stage
+Orchestrates the device half of the hmmsearch domain-definition stage
 (reference hot loop: witch_msa/gcmm/algorithm.py:524-537). The host
-engine's per-pair cost decomposes as (measured, example workload,
-4 AVX-512 cores):
-
-    flank rows (F+B specials)          1.3 s   stays host (AVX-512)
-    exact f64 Forward                  1.2 s   stays host (print-exact)
-    null2-by-expectation (envelopes)   6.5 s   -> THIS MODULE (device)
-    regions + trace ensembles          0.7 s   stays host
+engine's per-pair cost has four parts: the flank rows (F+B specials),
+the exact f64 Forward, the null2-by-expectation of each envelope, and
+the regions + trace ensembles. The null2 expectations, the largest of
+them, move to the device here; the rest stay on the host.
 
 Per model: classify regions from flank rows (native
 classify_targets_rows), batch every single-envelope region of every
-non-multidomain pair through ops/pallas_null2.py (one program), run the
-few multidomain pairs through the unchanged host engine, then assemble
-the per-pair gate tuple in evaluate_targets_rows' output format so the
-pipeline's consuming loop is agnostic to where null2 ran.
+non-multidomain pair through _envelope_null2_chunk (a batched unihit
+Forward/Backward over the envelope), run the few multidomain pairs
+through the unchanged host engine, then assemble the per-pair gate
+tuple in evaluate_targets_rows' output format so the pipeline's
+consuming loop is agnostic to where null2 ran.
 
 Print-exactness guard: the device computes in f32 (error ~1e-4 bits vs
 the f64 host engine). Any pair whose reported score lands within
@@ -30,7 +28,11 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Sequence, Tuple
 
+import jax
+import jax.numpy as jnp
 import numpy as np
+
+from .bank import ladder_states
 
 GUARD_BITS = 5e-3          # distance to a 0.05 rounding boundary
 GUARD_NATS = 5e-3          # envelope-qualification / sum-score guard
@@ -44,17 +46,234 @@ def _flogsum0(lw: float) -> float:
     return float(np.log1p(np.exp(lw)))
 
 
+def _dchain(x, y):
+    a1, b1 = x
+    a2, b2 = y
+    return a1 * a2, b1 * a2 + b2
+
+
+# Compile shapes of the device null2 come from two fixed ladders, never
+# from the data: the padded state count (bank.ladder_states) and the
+# envelope buffer length (ladder_width), with the chunk size P a
+# function of both. Every dataset of one alphabet then reuses the same
+# few programs from the persistent compile cache.
+NULL2_BUFFER_BYTES = 8 << 30    # forward rows kept for the backward pass
+NULL2_P_MAX = 1024
+
+
+def ladder_width(length: int) -> int:
+    """Envelope buffer length: the next of 256 * 4^k at or above
+    length. The scans stop at each chunk's longest envelope, so the
+    buffer sets memory, not work."""
+    w = 256
+    while w < length:
+        w *= 4
+    return w
+
+
+def chunk_rows(width: int, mp1: int) -> int:
+    """Envelopes per device call for a (width, state) shape: the power of
+    two whose stored forward rows fit NULL2_BUFFER_BYTES, in [32, P_MAX]."""
+    p = max(1, NULL2_BUFFER_BYTES // (2 * 4 * (width + 1) * mp1))
+    return int(max(32, min(NULL2_P_MAX, 1 << (p.bit_length() - 1))))
+
+
+def null2_chunks(lengths: Sequence[int], mp1: int):
+    """Length-sorted chunks of entry indices: (indices, width, P)."""
+    by_w: Dict[int, List[int]] = {}
+    for r in np.argsort(np.asarray(lengths), kind="stable"):
+        by_w.setdefault(ladder_width(int(lengths[r])), []).append(int(r))
+    for w, group in sorted(by_w.items()):
+        P = chunk_rows(w, mp1)
+        for s in range(0, len(group), P):
+            yield group[s:s + P], w, P
+
+
+def _fstep(carry, eo, tmm, tmi, tmd, tim, tii, tdm, tdd_s, bm, pmove, x,
+           i, ld):
+    """One forward row of the isolated unihit model (one envelope)."""
+    sh = lambda v: jnp.concatenate([jnp.zeros((1,), v.dtype), v[:-1]])
+    Mv, Iv, Dv, N, B, C, ls = carry
+    ploop = 1.0 - pmove
+    e = eo[x]
+    Mrow = (sh(Mv * tmm) + sh(Iv * tim) + sh(Dv * tdm) + B * bm) * e
+    Irow = Mv * tmi + Iv * tii
+    _, Drow = jax.lax.associative_scan(_dchain, (tdd_s, sh(Mrow * tmd)))
+    Cn = C * ploop + jnp.sum(Mrow) + jnp.sum(Drow)
+    Nn = N * ploop
+    scale = jnp.maximum(jnp.maximum(jnp.max(Mrow), Cn),
+                        jnp.maximum(Nn, 1e-35))
+    inv = 1.0 / scale
+    new = (Mrow * inv, Irow * inv, Drow * inv, Nn * inv, Nn * pmove * inv,
+           Cn * inv, ls + jnp.log(scale))
+    return tuple(jnp.where(i < ld, n, c) for n, c in zip(new, carry))
+
+
+def _bstep(carry, eo, tmm, tmi, tmd, tim, tii, tdm, tdd, bm, pmove, x, i,
+           ld, fMi, fIi, fsi, logz):
+    """One backward row; folds the row's posterior usage into the running
+    sums (accM [Mp1], accI), so no backward row is stored."""
+    shl = lambda v: jnp.concatenate([v[1:], jnp.zeros((1,), v.dtype)])
+    (bM_n, bI_n, bN_n, bC_n, ls), accM, accI = carry
+    ploop = 1.0 - pmove
+    e = eo[x]
+    Cv = bC_n * ploop
+    me = shl(bM_n * e)
+    Nv = bN_n * ploop + jnp.sum(bm * e * bM_n) * pmove
+    _, Dr = jax.lax.associative_scan(
+        _dchain, (tdd[::-1], (me * tdm + Cv)[::-1]))
+    Dv = Dr[::-1]
+    Mv = Cv + me * tmm + bI_n * tmi + shl(Dv) * tmd
+    Iv = me * tim + bI_n * tii
+    scale = jnp.maximum(jnp.max(Mv), jnp.maximum(Nv, 1e-35))
+    inv = 1.0 / scale
+    new = (Mv * inv, Iv * inv, Nv * inv, Cv * inv, ls + jnp.log(scale))
+    # rows at and past the envelope's end keep the terminal row
+    st = tuple(jnp.where(i >= ld, c, n) for n, c in zip(new, carry[0]))
+    w = jnp.where((i >= 1) & (i <= ld), jnp.exp(fsi + st[4] - logz), 0.0)
+    return st, accM + fMi * st[0] * w, accI + jnp.sum(fIi * st[1]) * w
+
+
+def _bterm(tmd, tdd, pmove):
+    """Terminal backward row (row ld) of the unihit model."""
+    shl = lambda v: jnp.concatenate([v[1:], jnp.zeros((1,), v.dtype)])
+    Mp1 = tdd.shape[0]
+    _, DL = jax.lax.associative_scan(
+        _dchain, (tdd[::-1], jnp.full((Mp1,), 1.0, jnp.float32) * pmove))
+    DL = DL[::-1]
+    zero = jnp.zeros((Mp1,), jnp.float32)
+    return (pmove + shl(DL) * tmd, zero, jnp.float32(0.0), pmove,
+            jnp.float32(0.0))
+
+
+@jax.jit
+def _envelope_null2_chunk(sel, codes, lds, lfull, n):
+    """Per envelope (model rows sel, codes [P, W], length, full target
+    length): the isolated unihit Forward score envsc (nats, length model
+    of the full target), n2dot[x] = Sum_k useM[k] * em[k, x], and the
+    total insert and match+insert usage expectations over the envelope's
+    rows (rescore_isolated_domain + null2_expectation semantics,
+    native/domaindef_kernel.cpp). The forward and backward loops run n
+    rows (the chunk's longest envelope), whatever the buffer width W."""
+    eo, tmm, tmi, tmd, tim, tii, tdm, tdd, bm = sel
+    P, Mp1 = tmm.shape
+    W = codes.shape[1]
+    eoT = jnp.swapaxes(eo, 1, 2)                     # [P, K, Mp1]
+    pmove = 2.0 / (lfull.astype(jnp.float32) + 2.0)
+    tdd_s = jnp.concatenate([jnp.zeros((P, 1), tdd.dtype), tdd[:, :-1]],
+                            axis=1)
+    rowv = (0,) * 10 + (0, None, 0)
+    fstep = jax.vmap(_fstep, in_axes=(0,) + rowv)
+    zero = jnp.zeros((P, Mp1), jnp.float32)
+    zs = jnp.zeros((P,), jnp.float32)
+    init = (zero, zero, zero, jnp.ones((P,), jnp.float32), pmove, zs, zs)
+
+    def fbody(i, st):
+        carry, fM, fI, fs = st
+        carry = fstep(carry, eoT, tmm, tmi, tmd, tim, tii, tdm, tdd_s, bm,
+                      pmove, codes[:, i], i, lds)
+        fM = jax.lax.dynamic_update_index_in_dim(fM, carry[0], i + 1, 0)
+        fI = jax.lax.dynamic_update_index_in_dim(fI, carry[1], i + 1, 0)
+        fs = jax.lax.dynamic_update_index_in_dim(fs, carry[6], i + 1, 0)
+        return carry, fM, fI, fs
+
+    rows0 = jnp.zeros((W + 1, P, Mp1), jnp.float32)
+    fin, fM, fI, fs = jax.lax.fori_loop(
+        0, n, fbody, (init, rows0, rows0, jnp.zeros((W + 1, P), jnp.float32)))
+    logz = jnp.log(fin[5] * pmove) + fin[6]
+
+    bstep = jax.vmap(_bstep, in_axes=(0,) + rowv + (0, 0, 0, 0))
+    codes1 = jnp.concatenate([codes, jnp.zeros((P, 1), codes.dtype)], axis=1)
+
+    def bbody(t, st):
+        i = n - t                                    # rows n..0
+        at = lambda a: jax.lax.dynamic_index_in_dim(a, i, 0, keepdims=False)
+        return bstep(st, eoT, tmm, tmi, tmd, tim, tii, tdm, tdd, bm, pmove,
+                     codes1[:, i], i, lds, at(fM), at(fI), at(fs), logz)
+
+    bterm = jax.vmap(_bterm)(tmd, tdd, pmove)
+    _, useM, useI = jax.lax.fori_loop(0, n + 1, bbody, (bterm, zero, zs))
+    n2dot = jnp.einsum("pk,pkx->px", useM, eo,
+                       precision=jax.lax.Precision.HIGHEST)
+    return logz, n2dot, useI, useM.sum(axis=1) + useI
+
+
+def null2_envelopes(bank, entries: Sequence[Tuple[int, np.ndarray, int]]):
+    """Device null2 for (bank_row, sub_codes, L_full) envelope entries.
+    Returns per entry (envsc nats, n2dot [128] per residue code, useI,
+    usetot), order-preserving. The bank is zero-padded to its ladder
+    state count (padded states are unreachable), rows are selected on
+    the device, and entries run in length-sorted chunks of ladder
+    shapes (null2_chunks)."""
+    n = len(entries)
+    envsc = np.zeros(n)
+    n2d = np.zeros((n, 128))
+    useI = np.zeros(n)
+    usetot = np.zeros(n)
+    if n == 0:
+        return envsc, n2d, useI, usetot
+    H, Mp1, K = bank.em_odds.shape
+    mp1 = ladder_states(Mp1 - 1) + 1
+    args = tuple(jnp.asarray(np.pad(a, [(0, 0), (0, mp1 - Mp1)]
+                                    + [(0, 0)] * (a.ndim - 2)))
+                 for a in (bank.em_odds, bank.t_mm, bank.t_mi, bank.t_md,
+                           bank.t_im, bank.t_ii, bank.t_dm, bank.t_dd,
+                           bank.bm))
+    lengths = [len(sub) for _, sub, _ in entries]
+    for chunk, width, P in null2_chunks(lengths, mp1):
+        rows = np.zeros(P, np.int32)
+        codes = np.zeros((P, width), np.int32)
+        lds = np.ones(P, np.int32)
+        lfull = np.ones(P, np.int32)
+        for t, r in enumerate(chunk):
+            row, sub, lf = entries[r]
+            rows[t] = row
+            codes[t, :len(sub)] = sub
+            lds[t] = len(sub)
+            lfull[t] = lf
+        rows_d = jnp.asarray(rows)
+        sel = tuple(jnp.take(a, rows_d, axis=0) for a in args)
+        es, nd, ui, ut = (np.asarray(x) for x in _envelope_null2_chunk(
+            sel, jnp.asarray(codes), jnp.asarray(lds), jnp.asarray(lfull),
+            np.int32(lds.max())))
+        m = len(chunk)
+        envsc[chunk] = es[:m]
+        n2d[chunk, :K] = nd[:m]
+        useI[chunk] = ui[:m]
+        usetot[chunk] = ut[:m]
+    return envsc, n2d, useI, usetot
+
+
+def envelope_n2sums(entries, n2dot, useI, usetot):
+    """Per entry n2sum = Sum over the envelope's residues of log null2(x),
+    with null2(x) = (n2dot[x] + useI + max(Ld - usetot, 0)) / Ld
+    (null2_expectation, native/domaindef_kernel.cpp); vectorized over
+    the whole batch: per-entry residue histograms via one bincount on a
+    flattened key."""
+    n_e = len(entries)
+    if n_e == 0:
+        return np.zeros(0), np.zeros(0)
+    Ld = np.array([len(sub) for _, sub, _ in entries], np.float64)
+    flat_codes = np.concatenate([sub for _, sub, _ in entries])
+    flat_r = np.repeat(np.arange(n_e), Ld.astype(np.int64))
+    counts = np.bincount(flat_r * 128 + flat_codes,
+                         minlength=n_e * 128).reshape(n_e, 128)
+    xocc = np.maximum(Ld - usetot, 0.0)
+    n2x = (n2dot + useI[:, None] + xocc[:, None]) / Ld[:, None]
+    with np.errstate(divide="ignore"):
+        logs = np.log(np.maximum(n2x, 1e-30))
+    return np.einsum("ij,ij->i", counts.astype(np.float64), logs), Ld
+
+
 def evaluate_gate_device(banks, bankloc_of_col, allargs, qcodes,
                          by_j: Dict[int, List[int]],
                          flank_rows, nsamples: int = 200, seed: int = 42,
-                         interpret: bool = False, nthreads: int = 4,
-                         log=None):
+                         nthreads: int = 4):
     """Returns {j: (nreg, nenv, sbias, fwd_zeros, senv, sbsum, ld)} in
     evaluate_targets_rows' tuple layout (fwd column zeroed — the caller
     supplies exact f64 Forward separately), plus a stats dict.
 
-    banks: the scoring ProfileBanks (device tables, content-cached on
-    device — the gate reuses them rather than uploading a unified copy).
+    banks: the scoring ProfileBanks.
     bankloc_of_col: (bank_index, bank_row) per score-matrix column j.
     allargs: per-column native model args (msc + 8 transition rows).
     qcodes: per-query int32 code arrays.
@@ -66,7 +285,6 @@ def evaluate_gate_device(banks, bankloc_of_col, allargs, qcodes,
     from concurrent.futures import ThreadPoolExecutor
 
     from ..native import _domaindef
-    from ..ops.pallas_null2 import null2_envelopes_device
 
     if not isinstance(banks, (list, tuple)):
         banks = [banks]
@@ -95,9 +313,8 @@ def evaluate_gate_device(banks, bankloc_of_col, allargs, qcodes,
             entry_loc.append((j, p, int(ei[r]), int(ej[r])))
     t1 = time.time()
 
-    # ---- stages 2+3 run CONCURRENTLY: the device null2 dispatch
-    # (remote accelerator, host mostly idle waiting) overlaps the host
-    # multidomain trace ensembles (native threads, GIL released) ------
+    # ---- stages 2+3 run CONCURRENTLY: the device null2 overlaps the
+    # host multidomain trace ensembles (native threads, GIL released) --
     n_e = len(entries)
     envsc = np.zeros(n_e)
     n2dot = np.zeros((n_e, 128))
@@ -105,21 +322,14 @@ def evaluate_gate_device(banks, bankloc_of_col, allargs, qcodes,
     usetot = np.zeros(n_e)
     entry_bank = np.asarray(entry_bank, np.int64) if n_e else \
         np.zeros(0, np.int64)
-    # canonical row count shared by every bank (program-shape
-    # stability: envelopes are bounded by query length, so the padded
-    # Ldmax must not depend on which candidates a given run draws)
-    Lq_max = max((len(qcodes[q]) for _, ql in items for q in ql),
-                 default=64)
-    Ld_canon = max(64, -(-Lq_max // 64) * 64)
 
     def run_device_null2():
         for bi, bank in enumerate(banks):
             sel = np.flatnonzero(entry_bank == bi)
             if len(sel) == 0:
                 continue
-            es, nd, ui, ut = null2_envelopes_device(
-                bank, [entries[r] for r in sel], interpret=interpret,
-                Ldmax=Ld_canon)
+            es, nd, ui, ut = null2_envelopes(
+                bank, [entries[r] for r in sel])
             envsc[sel] = es
             n2dot[sel] = nd
             useI[sel] = ui
@@ -163,31 +373,15 @@ def evaluate_gate_device(banks, bankloc_of_col, allargs, qcodes,
         raise dev_exc[0]
     t3 = time.time()
 
-    # ---- stage 4: assemble per-pair tuples (vectorized over the
-    # whole entry batch: per-entry residue histograms via one bincount
-    # on a flattened key, then np.add.at scatter into per-pair sums) --
+    # ---- stage 4: assemble per-pair tuples --------------------------
     per_pair: Dict[Tuple[int, int], List[int]] = {}
     for r, (j, p, ei, ej) in enumerate(entry_loc):
         per_pair.setdefault((j, p), []).append(r)
 
-    if n_e:
-        Ldr_a = np.array([len(entries[r][1]) for r in range(n_e)],
-                         np.float64)
-        flat_codes = np.concatenate([entries[r][1] for r in range(n_e)])
-        flat_r = np.repeat(np.arange(n_e), Ldr_a.astype(np.int64))
-        counts_m = np.bincount(flat_r * 128 + flat_codes,
-                               minlength=n_e * 128).reshape(n_e, 128)
-        xocc_a = np.maximum(Ldr_a - usetot, 0.0)
-        n2x_m = (n2dot + useI[:, None] + xocc_a[:, None]) / Ldr_a[:, None]
-        with np.errstate(divide="ignore"):
-            logs_m = np.log(np.maximum(n2x_m, 1e-30))
-        n2sum_a = np.einsum("ij,ij->i", counts_m.astype(np.float64),
-                            logs_m)
-        margin_a = envsc - n2sum_a
-        near_a = np.abs(margin_a) < GUARD_NATS
-        pos_a = margin_a > 0.0
-    else:
-        n2sum_a = near_a = pos_a = Ldr_a = np.zeros(0)
+    n2sum_a, Ldr_a = envelope_n2sums(entries, n2dot, useI, usetot)
+    margin_a = envsc - n2sum_a
+    near_a = np.abs(margin_a) < GUARD_NATS
+    pos_a = margin_a > 0.0
 
     results = {}
     guard: Dict[int, List[int]] = {}

@@ -1702,7 +1702,7 @@ static bool parse_model_targets(PyObject *omsc, PyObject *ot[8],
  * Forward that evaluate_targets reports as fwd) — the cheap CPU
  * pre-ranker: ~5-10x cheaper per pair than the full domain-definition
  * evaluation, used to pick gate candidates per query the way the
- * Pallas pre-score does on TPU (pipeline.compute_scores). */
+ * device pre-score does on a GPU (pipeline.compute_scores). */
 static PyObject *forward_targets(PyObject *, PyObject *args) {
     PyObject *omsc, *ot[8], *olist;
     int nthreads;
@@ -1762,7 +1762,7 @@ static PyObject *forward_targets(PyObject *, PyObject *args) {
  * rescaling (getexp/scalef keeps the scale ledger exact). Used only
  * for candidate RANKING — exact f64 scores for every reported pair
  * still come from evaluate_targets (pipeline.compute_scores), the same
- * split the Pallas f32 kernel uses on the accelerator. */
+ * split the f32 device pre-score uses. */
 
 #ifdef __AVX512F__
 #include <immintrin.h>
@@ -3429,7 +3429,7 @@ static PyObject *posterior_oa_pair(PyObject *, PyObject *args) {
  * where (pair_idx, ei, ej) lists the SINGLE-envelope regions of
  * targets with has_multi == 0 — exactly the envelopes whose
  * null2-by-expectation (the gate stage's dominant host cost) can be
- * batched on the accelerator (ops/pallas_null2.py). Targets with any
+ * batched on the device (hmm/gate_device.py). Targets with any
  * multidomain region keep the full host path (trace ensembles).
  * Row conventions match evaluate_targets_rows. */
 static PyObject *classify_targets_rows(PyObject *, PyObject *args) {

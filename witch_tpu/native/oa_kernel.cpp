@@ -2,8 +2,8 @@
  *
  * Exact reimplementation of witch_tpu/hmm/align_ref.py's oa_fill/oa_trace
  * (HMMER generic_optacc semantics: -inf init, FLT_MIN deltas for disallowed
- * transitions, first-max-wins tie order). The heavy posterior matrices come
- * from the TPU; this kernel turns them into a state path ~20x faster than
+ * transitions, first-max-wins tie order). Given the posterior matrices,
+ * this kernel turns them into a state path ~20x faster than
  * the numpy version, which matters when aligning thousands of
  * (query x HMM) pairs or iterating a backbone alignment.
  *

@@ -8,10 +8,9 @@
  *
  * This is the numerical core of the consistency (ProbCons-style)
  * backbone aligner in witch_tpu/backbone_consistency.py — the
- * TPU-native replacement for the reference's vendored-MAGUS /
- * MAFFT L-INS-i backbone path (witch_msa/gcmm/backbone.py:200-221).
- * The same recurrence is the TPU Pallas kernel target; this C++
- * version is the single-chip-dead / CPU fallback and the test oracle.
+ * replacement for the reference's vendored-MAGUS / MAFFT L-INS-i
+ * backbone path (witch_msa/gcmm/backbone.py:200-221). It is also the
+ * test oracle for the recurrence.
  *
  * CPython C API + numpy only.
  */

@@ -20,7 +20,7 @@ and raises AttributeError), so this is a behavioral reconstruction; exact
 output parity is untestable against the shipped code.
 
 MCL expansion/inflation runs as dense matrix ops on the banded subgraph —
-a natural fit for the MXU when batched (device path), with a numpy
+a natural fit for the matrix units when batched (device path), with a numpy
 fallback for small problems.
 """
 

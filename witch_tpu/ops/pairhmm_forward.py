@@ -4,7 +4,7 @@ The consistency backbone engine (backbone_consistency.py) needs two
 kinds of pair-HMM quantities:
 
   * full match posteriors (forward+backward) — computed by the native
-    C++ kernel; too large to ship through a slow device->host link;
+    C++ kernel; too large to move off the device per pair;
   * scalar alignment scores for the anchor embedding / guide distances
     — one float per pair, ideal for device batching.
 

@@ -1,9 +1,10 @@
-"""Multi-chip distribution: device mesh + the production sharded scoring.
+"""Multi-device distribution: device mesh + the production sharded scoring.
 
 The reference's "parallelism" is a single-host subprocess farm over
 (HMM x query-chunk) hmmsearch jobs (witch_msa/gcmm/algorithm.py:286-307,
-SURVEY.md §2.4). TPU-native design: queries are data-parallel over a 1-D
-device mesh ('data'), the eHMM bank is replicated (it is small: the whole
+SURVEY.md §2.4). Here queries are data-parallel over a 1-D device mesh
+('data'; the cards of a host reach each other all to all, so the mesh
+follows the algorithm alone), the eHMM bank is replicated (the whole
 141-model example bank is ~8 MB), and every Forward pair is computed
 exactly as on one device — so the sharded path is *bit-identical* to the
 single-device path, and the downstream reported-score semantics (tau
@@ -31,10 +32,7 @@ from ..hmm.forward import _forward_one
 def data_mesh(n_devices: Optional[int] = None) -> Optional[Mesh]:
     """1-D production mesh over all (or the first n) devices; None when
     only one device is available (single-chip path stays untouched)."""
-    try:
-        devs = jax.devices()
-    except Exception:
-        return None
+    devs = jax.devices()
     if n_devices is not None:
         devs = devs[:n_devices]
     if len(devs) <= 1:
@@ -86,19 +84,21 @@ def _sharded_xla_step(mesh):
 
 
 @functools.cache
-def _sharded_pallas_step(mesh, QT, n_dbl=None):
-    from ..ops.pallas_forward import pallas_forward_nats_raw
-    in_specs = (P(), P(), P("data", None), P("data"))
+def sharded_kernel_step(mesh, interpret: bool = False):
+    """The Triton pre-score kernel under shard_map: query blocks over
+    'data', model tables replicated (ops/pallas_forward.forward_bits
+    takes it as its `step`)."""
+    from ..ops.pallas_forward import forward_nats_blocks
+    in_specs = (P("data", None, None), P("data", None), P("data"),
+                P(), P(), P())
     return jax.jit(jax.shard_map(
-        lambda emT, trans, c, l: pallas_forward_nats_raw(
-            emT, trans, c, l, QT=QT, n_dbl=n_dbl),
-        mesh=mesh, in_specs=in_specs, out_specs=P("data", None),
-        check_vma=False))
+        functools.partial(forward_nats_blocks, interpret=interpret),
+        mesh=mesh, in_specs=in_specs,
+        out_specs=P(None, "data", None), check_vma=False))
 
 
 def sharded_score_bank(mesh: Mesh, bank, codes: np.ndarray,
-                       qlens: np.ndarray, backend: str = "xla",
-                       QT: int = 128, max_shapes: int = 2) -> np.ndarray:
+                       qlens: np.ndarray, backend: str = "xla") -> np.ndarray:
     """Production distributed scoring: [Q, H] pre-score bits, queries
     sharded over 'data', bank replicated.  Per-pair computation is the
     single-device code — results are bit-identical to score_bank on one
@@ -106,43 +106,9 @@ def sharded_score_bank(mesh: Mesh, bank, codes: np.ndarray,
     n = int(mesh.shape["data"])
     Q = len(qlens)
     if backend == "pallas":
-        from ..ops.pallas_forward import (bank_to_pallas_arrays,
-                                          _bits_from_nats)
-        from ..ops.pallas_forward import effective_n_dbl
-        emT, trans = bank_to_pallas_arrays(bank)
-        gaps = np.where(np.abs(emT).sum(axis=(0, 2)) == 0)[0]
-        pad_code = int(gaps[0]) if len(gaps) else 4
-        emTj, transj = jnp.asarray(emT), jnp.asarray(trans)
-        # same truncated scan as the single-device path (bit-identity)
-        step = _sharded_pallas_step(mesh, QT, effective_n_dbl(trans))
-        blk = n * QT
-        order = np.argsort(qlens, kind="stable")
-        # quantized group lengths (multiples of 64), <= max_shapes shapes
-        raw = []
-        for s in range(0, Q, blk):
-            idx = order[s:s + blk]
-            raw.append((idx, max(64, -(-int(qlens[idx].max()) // 64) * 64)))
-        lpads = sorted({lp for _, lp in raw})
-        if len(lpads) > max_shapes:
-            keep = {lpads[-1]}
-            stepw = len(lpads) / max_shapes
-            for k in range(1, max_shapes):
-                keep.add(lpads[min(len(lpads) - 1, int(k * stepw) - 1)])
-            keep = sorted(keep)
-            raw = [(idx, min(e for e in keep if e >= lp))
-                   for idx, lp in raw]
-        out = np.empty((Q, bank.H), np.float64)
-        for idx, Lpad in raw:
-            nn = len(idx)
-            cp = np.full((blk, Lpad), pad_code, np.int32)
-            for t, qi in enumerate(idx):
-                cp[t, :qlens[qi]] = codes[qi, :qlens[qi]]
-            lp = np.ones(blk, np.int32)
-            lp[:nn] = qlens[idx]
-            nats = np.asarray(step(emTj, transj, jnp.asarray(cp),
-                                   jnp.asarray(lp)))[:nn]
-            out[idx] = _bits_from_nats(nats, qlens[idx], Lpad)
-        return out
+        from ..ops.pallas_forward import forward_bits
+        return forward_bits(bank, codes, qlens,
+                            step=sharded_kernel_step(mesh), n_shards=n)
 
     args = tuple(jnp.asarray(a) for a in (
         bank.em_odds, bank.t_mm, bank.t_mi, bank.t_md, bank.t_im,

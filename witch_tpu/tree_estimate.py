@@ -1,7 +1,7 @@
 """Backbone tree estimation (scenario C: backbone alignment given, tree
 missing; reference runs FastTree2 there, witch_msa/gcmm/backbone.py:296-319).
 
-TPU-native design: pairwise identity fractions come from one one-hot
+Design: pairwise identity fractions come from one one-hot
 matmul batch on device (the O(n^2 L) part); Jukes-Cantor correction and
 neighbor-joining run on host. NJ topology is what the centroid
 decomposition needs; branch lengths are JC distances.
@@ -37,13 +37,19 @@ def pairwise_distances(aln: PackedAlignment, use_device: bool = True
     flat = onehot.reshape(n, L * K)
     maskf = canon.astype(np.float32)
     if use_device:
-        try:
-            import jax.numpy as jnp
-            matches = np.asarray(jnp.asarray(flat) @ jnp.asarray(flat).T)
-            denom = np.asarray(jnp.asarray(maskf) @ jnp.asarray(maskf).T)
-        except Exception:
-            use_device = False
-    if not use_device:
+        import jax
+        import jax.numpy as jnp
+
+        # 0/1 operands are exact in TF32, and the f32 accumulation of
+        # integer counts is exact below 2**24, so the default precision
+        # (TF32 on a GPU) gives exact counts
+        def gram(x):
+            xj = jnp.asarray(x)
+            return np.asarray(jnp.matmul(
+                xj, xj.T, precision=jax.lax.Precision.DEFAULT))
+        matches = gram(flat)
+        denom = gram(maskf)
+    else:
         matches = flat @ flat.T
         denom = maskf @ maskf.T
     with np.errstate(divide="ignore", invalid="ignore"):
